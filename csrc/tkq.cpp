@@ -1,11 +1,11 @@
-// tkq: native codec/repack library for tpu-kquant.
+// tkq: native codec/repack library for kquant.
 //
 // The reference engine's model-I/O + quant layer is C/C++ (SURVEY.md 2.1:
-// gguf.cpp, llama-model-loader, quants.c). This is its TPU-framework
+// gguf.cpp, llama-model-loader, quants.c). This is its JAX-framework
 // equivalent: multithreaded host-side decode of ggml block formats into the
-// canonical TPU packed-GEMM layouts (see tpu_kquant/quant/repack.py for the
+// canonical packed-GEMM layouts (see kquant/quant/repack.py for the
 // layout contract), plus fast quantizers for GGUF export. Loaded from Python
-// via ctypes (tpu_kquant/quant/native.py); NumPy implementations remain the
+// via ctypes (kquant/quant/native.py); NumPy implementations remain the
 // reference and fallback.
 //
 // Build: make -C csrc   (g++ -O3 -fopenmp -shared -fPIC)
@@ -70,7 +70,7 @@ static inline uint16_t f32_to_f16(float f) {
 
 // ---------------------------------------------------------------------------
 // per-superblock decode to codes + effective scales/mins
-// (bit layouts per the GGUF spec; see tpu_kquant/quant/numpy_codecs.py)
+// (bit layouts per the GGUF spec; see kquant/quant/numpy_codecs.py)
 // ---------------------------------------------------------------------------
 
 static inline void kscales_unpack(const uint8_t* s, uint8_t* sc, uint8_t* m) {
@@ -147,7 +147,7 @@ static void decode_q80_block(const uint8_t* b, uint8_t* codes, float* scale, flo
 // repack: raw blocks of a (N, K) tensor -> kmajor packed arrays
 //   q4/q5/q6 -> qs[K/2, N] nibble-folded (+ qh[K/8 or K/4, N])
 //   scales/mins [K/g, N] float32
-// Matches tpu_kquant/quant/repack.py bit-for-bit (tested).
+// Matches kquant/quant/repack.py bit-for-bit (tested).
 // ---------------------------------------------------------------------------
 
 // kind: 4 = q4_k, 5 = q5_k, 6 = q6_k, 8 = q8_0
@@ -270,7 +270,7 @@ static inline void kscales_pack(const uint8_t* sc, const uint8_t* m, uint8_t* ou
 // error-minimizing scale searches (ggml make_qx_quants / make_qkx2_quants).
 // Float32 elementwise (nearbyintf = nearest-even, matching ggml nearest_int
 // and np.round), float64 accumulation — bit-identical to the NumPy reference
-// in tpu_kquant/quant/numpy_codecs.py (same term values; tested).
+// in kquant/quant/numpy_codecs.py (same term values; tested).
 // ---------------------------------------------------------------------------
 
 static const double TKQ_GROUP_MAX_EPS = 1e-15;

@@ -1,7 +1,7 @@
 """Independent NumPy reference forward for parity tests.
 
 Deliberately implemented from the architecture definition (not by calling any
-tpu_kquant op), mirroring SURVEY.md section 4's implication (c): end-to-end
+kquant op), mirroring SURVEY.md section 4's implication (c): end-to-end
 logit parity of the engine vs a dequantized-fp32 forward.
 """
 
@@ -56,7 +56,7 @@ def ref_forward(reader, cfg, tokens):
     # raw-GGUF rope pairing: the engine loader canonicalizes NORM-mode models
     # to NEOX by permuting q/k weights, but this reference reads the raw
     # on-disk weights, so it must use the on-disk pairing
-    from tpu_kquant.models.config import ModelConfig
+    from kquant.models.config import ModelConfig
 
     raw_mode = ModelConfig.from_gguf(reader.metadata).rope.mode
     T = len(tokens)

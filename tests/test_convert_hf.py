@@ -35,8 +35,8 @@ def hf_checkpoint(tmp_path_factory):
 
 
 def test_convert_and_logit_parity(hf_checkpoint, tmp_path):
-    from tpu_kquant.runtime import InferenceEngine, load_model
-    from tpu_kquant.tools.convert_hf import convert
+    from kquant.runtime import InferenceEngine, load_model
+    from kquant.tools.convert_hf import convert
 
     hf_dir, model = hf_checkpoint
     out = str(tmp_path / "converted.gguf")
@@ -76,8 +76,8 @@ def test_convert_and_logit_parity(hf_checkpoint, tmp_path):
 
 
 def test_convert_quantized_still_agrees(hf_checkpoint, tmp_path):
-    from tpu_kquant.runtime import InferenceEngine, load_model
-    from tpu_kquant.tools.convert_hf import convert
+    from kquant.runtime import InferenceEngine, load_model
+    from kquant.tools.convert_hf import convert
 
     hf_dir, model = hf_checkpoint
     out = str(tmp_path / "q8.gguf")

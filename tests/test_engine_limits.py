@@ -4,8 +4,8 @@ writes past KV capacity."""
 import numpy as np
 import pytest
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from tpu_kquant.gguf import GGMLType, GGUFReader, GGUFWriter
+from kquant.gguf import GGMLType, GGUFReader, GGUFWriter
 
 RNG = np.random.default_rng(1)
 

@@ -1,70 +1,108 @@
-"""r4 instruments: the xplane device-trace reader and the kernel-lab
-mutation ladder (interpret mode)."""
+"""Instruments: the xplane trace reader on a trace this test records, and
+the kernel-time reduction on a hand-built GPU xplane."""
 
-from pathlib import Path
-
+import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
 
-REPO = Path(__file__).resolve().parents[1]
+from kquant.utils.xplane import (device_kernel_ps, device_op_table,
+                                 find_xplane, folded_stacks, parse_xspace)
 
 
-def test_xplane_reader_on_committed_trace():
-    """Parse the committed decode-trace xplane.pb: the device plane must
-    exist, events must aggregate, and the fused decode loop's custom calls
-    must be visible."""
-    pb = REPO / "artifacts" / "perf" / "trace_decode_r4.xplane.pb"
-    if not pb.exists():
-        pytest.skip("no committed trace artifact")
-    from tpu_kquant.utils.xplane import folded_stacks, parse_xspace
-
-    planes = parse_xspace(str(pb))
+def test_xplane_reader_on_committed_trace(tmp_path):
+    """Record a CPU trace of a small jitted computation and parse it: the
+    host plane must decode into named lines and timed events."""
+    f = jax.jit(lambda x: jnp.tanh(x @ x.T).sum())
+    x = jnp.ones((64, 64))
+    jax.block_until_ready(f(x))
+    jax.profiler.start_trace(str(tmp_path))
+    try:
+        jax.block_until_ready(f(x))
+    finally:
+        jax.profiler.stop_trace()
+    pb = find_xplane(str(tmp_path))
+    planes = parse_xspace(pb)
     names = [p for p, _ in planes]
-    assert any("TPU" in n for n in names), names
-    # device_op_table takes a trace DIR; aggregate manually on the pb here
-    agg = {}
-    for pname, lines in planes:
-        if "TPU" not in pname:
-            continue
+    assert any("host" in n.lower() for n in names), names
+    events = [e for _, lines in planes for _, evs in lines for e in evs]
+    assert events and all(dur >= 0 for _, _, dur in events)
+    assert any(isinstance(n, str) and n for n, _, _ in events)
+    # no GPU plane on the CPU: no device kernel time, an empty op table
+    assert device_kernel_ps(pb) == 0
+    rows, total = device_op_table(str(tmp_path))
+    assert rows == [] and total == 0
+    assert folded_stacks(str(tmp_path)) == "\n"
+
+
+def _varint(v):
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _field(num, payload):
+    if isinstance(payload, int):
+        return _varint(num << 3) + _varint(payload)
+    return _varint(num << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _xspace(planes):
+    """planes: [(name, [(line name, [(metadata id, offset_ps, dur_ps)])],
+    {metadata id: event name})] -> serialized XSpace bytes."""
+    out = b""
+    for pname, lines, meta in planes:
+        body = _field(2, pname.encode())
         for lname, events in lines:
-            if lname != "XLA Ops":
-                continue
-            for n, _off, dur in events:
-                agg[n] = agg.get(n, 0) + dur
-    assert agg, "no XLA Ops events decoded"
-    assert any("_oproj_ffn_call" in n for n in agg), list(agg)[:5]
-    # folded output needs a dir layout; exercise the formatter path directly
-    assert folded_stacks is not None
+            line = _field(2, lname.encode())
+            for mid, off, dur in events:
+                line += _field(4, _field(1, mid) + _field(2, off)
+                               + _field(3, dur))
+            body += _field(3, line)
+        for mid, name in meta.items():
+            body += _field(4, _field(1, mid)
+                           + _field(2, _field(1, mid) + _field(2, name.encode())))
+        out += _field(1, body)
+    return out
 
 
-@pytest.mark.parametrize("kind_mode", [
-    ("q4", "dma"), ("q4", "convert"), ("q4", "full"), ("q4", "gdot"),
-    ("q6w", "dma"), ("q6w", "full"), ("q6w", "gdot"),
-])
-def test_kernel_lab_modes_interpret(kind_mode):
-    """Every lab mutation mode lowers and runs (interpret), and the 'full'
-    mode matches a NumPy dequant matmul."""
-    kind, mode = kind_mode
-    from tools_kernel_bench import mk_q4, mk_q6w
-    from tpu_kquant.utils.kernel_lab import lab_qmm
+@pytest.fixture
+def gpu_trace(tmp_path):
+    d = tmp_path / "plugins" / "profile" / "run1"
+    d.mkdir(parents=True)
+    pb = d / "host.xplane.pb"
+    pb.write_bytes(_xspace([
+        ("/device:GPU:0", [
+            ("Stream #7(compute)", [(1, 0, 3000), (2, 5000, 2000),
+                                    (1, 9000, 1000)]),
+            ("XLA Ops", [(1, 0, 3000), (2, 5000, 2000)]),  # derived: skipped
+        ], {1: "qmm_q4", 2: "fusion.3"}),
+        ("/host:CPU", [("python", [(3, 0, 99999)])], {3: "PjitFunction"}),
+    ]))
+    return tmp_path, pb
 
-    rng = np.random.default_rng(0)
-    N, K, R = 256, 512, 1
-    qt = mk_q4(N, K, rng) if kind == "q4" else mk_q6w(N, K, rng)
-    s_fmt = "sm" if kind == "q4" else "sp"
-    keys = tuple(sorted(qt.arrays))
-    arrays = tuple(qt.arrays[k] for k in keys)
-    x = jnp.asarray(rng.standard_normal((R, K)), jnp.bfloat16)
-    xi8 = jnp.ones((R, 256), jnp.int8)
-    y = lab_qmm(x, xi8, arrays, mode, qt.kind, s_fmt, keys, N, K, 256,
-                geometry="k", interpret=True)
-    assert y.shape == (R, N)
-    assert np.isfinite(np.asarray(y)).all()
-    if mode in ("full", "gdot"):
-        from tpu_kquant.quant.jnp_codecs import dequant_kmajor
 
-        w = np.asarray(dequant_kmajor(qt, dtype=jnp.float32))  # [K, N]
-        ref = np.asarray(x, np.float32) @ w
-        np.testing.assert_allclose(np.asarray(y), ref, rtol=3e-2,
-                                   atol=3e-2 * np.abs(ref).max())
+def test_device_kernel_ps_sums_stream_lines(gpu_trace):
+    _, pb = gpu_trace
+    assert device_kernel_ps(str(pb)) == 6000
+
+
+def test_device_op_table_on_gpu_planes(gpu_trace):
+    tdir, _ = gpu_trace
+    rows, total_us = device_op_table(str(tdir))
+    assert [(n, c) for n, _, c in rows] == [("qmm_q4", 2), ("fusion.3", 1)]
+    assert total_us == pytest.approx(0.006)
+    folded = folded_stacks(str(tdir))
+    assert "/device:GPU:0;Stream #7(compute);qmm_q4" in folded
+    assert "PjitFunction" not in folded
+
+
+def test_device_kernel_ps_needs_stream_lines(tmp_path):
+    pb = tmp_path / "x.xplane.pb"
+    pb.write_bytes(_xspace([("/device:GPU:0", [("XLA Ops", [(1, 0, 5)])],
+                             {1: "op"})]))
+    with pytest.raises(ValueError, match="stream"):
+        device_kernel_ps(str(pb))

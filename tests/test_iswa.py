@@ -11,8 +11,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
 
 
 @pytest.fixture(scope="module")

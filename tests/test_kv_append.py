@@ -1,50 +1,5 @@
-"""Single-launch Pallas KV append (ops.pallas_kv_append) vs the XLA
-dynamic-update-slice path it replaces."""
-
-import jax.numpy as jnp
-import numpy as np
-import pytest
-
-from tpu_kquant.ops.pallas_kv_append import kv_append_pallas
-from tpu_kquant.runtime.kv_cache import KVCache
-
-
-@pytest.mark.parametrize("B,T", [(1, 1), (3, 1)])
-def test_kv_append_matches_xla(B, T):
-    L, Hkv, S, D = 3, 4, 64, 8
-    rng = np.random.default_rng(0)
-    cache = KVCache.create(L, B, S, Hkv, D)
-    k_new = jnp.asarray(rng.standard_normal((B, T, Hkv, D)), jnp.bfloat16)
-    v_new = jnp.asarray(rng.standard_normal((B, T, Hkv, D)), jnp.bfloat16)
-    starts = np.array([5 * (b + 1) for b in range(B)], np.int32)
-    positions = jnp.asarray(starts[:, None] + np.arange(T)[None, :])
-
-    ref = cache.append(1, k_new, v_new, positions)  # XLA path (CPU backend)
-    k2, v2 = kv_append_pallas(cache.k, cache.v, k_new, v_new, 1,
-                              positions[:, 0], interpret=True)
-
-    np.testing.assert_array_equal(np.asarray(ref.k), np.asarray(k2))
-    np.testing.assert_array_equal(np.asarray(ref.v), np.asarray(v2))
-
-
-def test_kv_append_preserves_other_rows():
-    L, B, Hkv, S, D = 2, 2, 2, 32, 8
-    rng = np.random.default_rng(1)
-    k0 = jnp.asarray(rng.standard_normal((L, B, Hkv, S, D)), jnp.bfloat16)
-    v0 = jnp.asarray(rng.standard_normal((L, B, Hkv, S, D)), jnp.bfloat16)
-    k_new = jnp.asarray(rng.standard_normal((B, 1, Hkv, D)), jnp.bfloat16)
-    v_new = jnp.asarray(rng.standard_normal((B, 1, Hkv, D)), jnp.bfloat16)
-    start = jnp.asarray([3, 7], jnp.int32)
-    k2, v2 = kv_append_pallas(k0, v0, k_new, v_new, 0, start,
-                              interpret=True)
-    k2, v2 = np.asarray(k2), np.asarray(v2)
-    k0n = np.asarray(k0).copy()
-    v0n = np.asarray(v0).copy()
-    for b in range(B):
-        k0n[0, b, :, int(start[b]), :] = np.asarray(k_new[b, 0])
-        v0n[0, b, :, int(start[b]), :] = np.asarray(v_new[b, 0])
-    np.testing.assert_array_equal(k2, k0n)
-    np.testing.assert_array_equal(v2, v0n)
+"""Deferred KV append: the decode step's batched end-of-step cache writes
+against the eager per-layer appends."""
 
 
 def test_deferred_append_matches_eager(monkeypatch):
@@ -53,8 +8,8 @@ def test_deferred_append_matches_eager(monkeypatch):
     the same cache contents as the eager per-layer append path."""
     import jax.numpy as jnp
 
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.runtime import InferenceEngine, load_model
     import tempfile, os
 
     with tempfile.TemporaryDirectory() as td:

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_kquant.ops.rope import RopeParams, apply_rope, rope_cos_sin
-from tpu_kquant.runtime.kv_cache import KVCache, shift_cache
+from kquant.ops.rope import RopeParams, apply_rope, rope_cos_sin
+from kquant.runtime.kv_cache import KVCache, shift_cache
 
 L, B, S, H, D = 2, 2, 16, 2, 8
 
@@ -105,7 +105,7 @@ def test_shift_matches_reencoding_int8():
 
 
 def test_rope_delta_is_pure_rotation_under_yarn():
-    from tpu_kquant.ops.rope import rope_delta_cos_sin
+    from kquant.ops.rope import rope_delta_cos_sin
 
     rope = ROPES["yarn"]
     cos, sin = rope_delta_cos_sin(-7, rope)
@@ -119,8 +119,8 @@ def test_rope_delta_is_pure_rotation_under_yarn():
 
 @pytest.fixture(scope="module")
 def eng(tmp_path_factory):
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.runtime import InferenceEngine, load_model
 
     path = tmp_path_factory.mktemp("m") / "shift.gguf"
     cfg = tiny_config(n_layers=2, dim=64, n_heads=4, n_kv_heads=2, ffn_dim=128,

@@ -14,8 +14,8 @@ transformers = pytest.importorskip("transformers")
 
 import jax.numpy as jnp  # noqa: E402
 
-from tpu_kquant.gguf import GGMLType, GGUFWriter  # noqa: E402
-from tpu_kquant.runtime import InferenceEngine, load_model  # noqa: E402
+from kquant.gguf import GGMLType, GGUFWriter  # noqa: E402
+from kquant.runtime import InferenceEngine, load_model  # noqa: E402
 
 D, DI, DS, DC, DTR, L, V = 64, 128, 16, 4, 4, 2, 512
 
@@ -154,7 +154,7 @@ def test_session_roundtrip(tmp_path, hf_and_gguf, engine):
 def test_convert_hf_mamba(tmp_path, hf_and_gguf):
     """tools/convert_hf on a saved HF MambaForCausalLM produces a GGUF whose
     engine logits match torch (the real-checkpoint conversion path)."""
-    from tpu_kquant.tools.convert_hf import convert
+    from kquant.tools.convert_hf import convert
 
     model, _ = hf_and_gguf
     hf_dir = tmp_path / "hf"
@@ -176,7 +176,7 @@ def test_convert_hf_mamba(tmp_path, hf_and_gguf):
 def test_continuous_batching_mamba(hf_and_gguf):
     """The serving loop works over the recurrent cache: slot prefill masks
     pads, outputs match single-stream generate."""
-    from tpu_kquant.serving.scheduler import ContinuousBatcher, Request
+    from kquant.serving.scheduler import ContinuousBatcher, Request
 
     _, path = hf_and_gguf
     cfg, params, reader = load_model(path)
@@ -198,7 +198,7 @@ def test_staggered_admission_and_slot_reuse_mamba(hf_and_gguf):
     into REUSED slots: inactive slots' dummy decodes must not drift their
     recurrent state, and a reused slot must prefill from zeros, not the
     previous request's final state (ADVICE r3 high)."""
-    from tpu_kquant.serving.scheduler import ContinuousBatcher, Request
+    from kquant.serving.scheduler import ContinuousBatcher, Request
 
     _, path = hf_and_gguf
     cfg, params, reader = load_model(path)

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 
 from tests.reference_forward import ref_forward
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
 
 
 @pytest.fixture(scope="module")

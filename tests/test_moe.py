@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
 
 
 @pytest.fixture(scope="module")
@@ -44,10 +44,10 @@ def test_moe_routing_weights_normalized(moe_model):
     using all experts with uniform router logits must equal the plain mean."""
     import dataclasses
 
-    from tpu_kquant.models.moe import _expert_view, moe_ffn
-    from tpu_kquant.ops.qmatmul import qmatmul
-    from tpu_kquant.ops.activations import swiglu
-    from tpu_kquant.quant.qtensor import QTensor
+    from kquant.models.moe import _expert_view, moe_ffn
+    from kquant.ops.qmatmul import qmatmul
+    from kquant.ops.activations import swiglu
+    from kquant.quant.qtensor import QTensor
 
     cfg, params, _ = moe_model
     layer = dict(params["layers"][0])
@@ -74,7 +74,7 @@ def test_moe_ep_einsum_matches_loop(moe_model):
     """The expert-parallel dense-einsum path must match the per-expert loop."""
     import dataclasses
 
-    from tpu_kquant.models.moe import moe_ffn
+    from kquant.models.moe import moe_ffn
 
     cfg, params, _ = moe_model
     layer = params["layers"][0]
@@ -87,7 +87,7 @@ def test_moe_ep_einsum_matches_loop(moe_model):
 
 def test_moe_ep_sharded(tmp_path):
     """Full EP+TP mesh run of a MoE model on the virtual device mesh."""
-    from tpu_kquant.parallel import make_mesh, make_param_put
+    from kquant.parallel import make_mesh, make_param_put
     from jax.sharding import PartitionSpec as P
 
     path = tmp_path / "moe_ep.gguf"

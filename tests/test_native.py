@@ -6,15 +6,15 @@ to the NumPy reference automatically)."""
 import numpy as np
 import pytest
 
-from tpu_kquant.gguf.constants import GGMLType
-from tpu_kquant.quant import dequantize, quantize
-from tpu_kquant.quant.native import (
+from kquant.gguf.constants import GGMLType
+from kquant.quant import dequantize, quantize
+from kquant.quant.native import (
     dequantize_native,
     get_lib,
     quantize_native,
     repack_kmajor_native,
 )
-from tpu_kquant.quant.repack import repack
+from kquant.quant.repack import repack
 
 pytestmark = pytest.mark.skipif(get_lib() is None, reason="libtkq not available")
 RNG = np.random.default_rng(9)

@@ -1,17 +1,18 @@
-"""Fused Pallas dequant+matmul vs the XLA dequant-then-matmul reference
-(SURVEY.md section 4 implication (b)). Runs in interpreter mode on CPU; the
-same kernels compile natively on TPU."""
+"""Fused dequant+matmul kernel (ops.qmm_triton) vs the XLA
+dequant-then-matmul reference (SURVEY.md section 4 implication (b)). Runs in
+the Pallas interpreter on the CPU; the same kernel compiles for the GPU
+through Triton."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from tpu_kquant.gguf.constants import GGMLType
-from tpu_kquant.ops.pallas_qmm import qmm_pallas
-from tpu_kquant.ops.qmatmul import qmatmul
-from tpu_kquant.quant import quantize
-from tpu_kquant.quant.repack import repack
+from kquant.gguf.constants import GGMLType
+from kquant.ops.qmm_triton import qmm_triton as qmm_pallas
+from kquant.ops.qmatmul import qmatmul
+from kquant.quant import quantize
+from kquant.quant.repack import repack
 
 RNG = np.random.default_rng(3)
 
@@ -77,8 +78,8 @@ def test_pallas_bf16_activations():
 def test_pallas_sm_packed_pairs():
     """Packed (scale, min) pair side array: kernel must match the XLA
     dequant of the SAME sm QTensor exactly (both decode bf16 pairs)."""
-    from tpu_kquant.quant.repack import pack_scale_pairs
-    from tpu_kquant.quant.qtensor import QTensor
+    from kquant.quant.repack import pack_scale_pairs
+    from kquant.quant.qtensor import QTensor
 
     for t, k in ((GGMLType.Q4_K, 2048), (GGMLType.Q6_K, 1024)):
         qt = _mk(t, 128, k)

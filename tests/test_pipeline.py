@@ -8,15 +8,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.parallel import (
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.parallel import (
     make_mesh,
     make_param_put,
     make_pp_forward,
     shard_cache_pp,
     stack_pp_params,
 )
-from tpu_kquant.runtime import InferenceEngine, load_model
+from kquant.runtime import InferenceEngine, load_model
 
 
 @pytest.fixture(scope="module")

@@ -10,9 +10,9 @@ so a decoder bug cannot cancel an encoder bug.
 import numpy as np
 import pytest
 
-from tpu_kquant.gguf.constants import GGMLType, block_size, row_size, type_size
-from tpu_kquant.quant import dequantize, quantize
-from tpu_kquant.quant.numpy_codecs import pack_kscales, unpack_kscales
+from kquant.gguf.constants import GGMLType, block_size, row_size, type_size
+from kquant.quant import dequantize, quantize
+from kquant.quant.numpy_codecs import pack_kscales, unpack_kscales
 
 RNG = np.random.default_rng(0)
 

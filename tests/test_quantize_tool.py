@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from tpu_kquant.gguf import GGMLType, GGUFReader
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
-from tpu_kquant.tools.quantize import requantize
+from kquant.gguf import GGMLType, GGUFReader
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
+from kquant.tools.quantize import requantize
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +52,7 @@ def test_ppl_delta_small(f16_model, tmp_path):
     north-star ppl-delta gate)."""
     import sys
 
-    from tpu_kquant.tools.ppl_delta import main
+    from kquant.tools.ppl_delta import main
 
     text = tmp_path / "t.txt"
     text.write_text("hello world " * 60)

@@ -13,10 +13,10 @@ redistribution collectives.
 import numpy as np
 import pytest
 
-from tpu_kquant.gguf.constants import GGMLType
-from tpu_kquant.quant.jnp_codecs import dequant_kmajor
-from tpu_kquant.quant.numpy_codecs import quantize
-from tpu_kquant.quant.repack import refold_kmajor, repack
+from kquant.gguf.constants import GGMLType
+from kquant.quant.jnp_codecs import dequant_kmajor
+from kquant.quant.numpy_codecs import quantize
+from kquant.quant.repack import refold_kmajor, repack
 
 
 @pytest.mark.parametrize("t", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q5_K,
@@ -43,8 +43,8 @@ def test_row_parallel_matmul_parity_and_no_weight_collectives():
     import jax
     import jax.numpy as jnp
 
-    from tpu_kquant.ops.qmatmul import qmatmul
-    from tpu_kquant.parallel import make_mesh, shard_qtensor
+    from kquant.ops.qmatmul import qmatmul
+    from kquant.parallel import make_mesh, shard_qtensor
 
     rng = np.random.default_rng(5)
     N, K = 256, 4096

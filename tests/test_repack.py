@@ -5,10 +5,10 @@ numerics)."""
 import numpy as np
 import pytest
 
-from tpu_kquant.gguf.constants import GGMLType
-from tpu_kquant.quant import dequantize, quantize
-from tpu_kquant.quant.jnp_codecs import dequant_kmajor, dequant_logical, dequant_rows
-from tpu_kquant.quant.repack import repack
+from kquant.gguf.constants import GGMLType
+from kquant.quant import dequantize, quantize
+from kquant.quant.jnp_codecs import dequant_kmajor, dequant_logical, dequant_rows
+from kquant.quant.repack import repack
 
 RNG = np.random.default_rng(2)
 
@@ -77,8 +77,8 @@ def test_f16_scale_dtype_load(tmp_path):
     f32-scale logits on smooth fixtures."""
     import numpy as np
     import jax.numpy as jnp
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.runtime import InferenceEngine, load_model
 
     path = tmp_path / "f16s.gguf"
     cfg = tiny_config(n_layers=2, dim=64, n_heads=4, n_kv_heads=2, ffn_dim=128,
@@ -101,8 +101,8 @@ def test_pack_scale_pairs_roundtrip():
     """sm packing stores exact bf16 roundings of scales and mins."""
     import ml_dtypes
     import numpy as np
-    from tpu_kquant.quant.qtensor import QTensor
-    from tpu_kquant.quant.repack import pack_scale_pairs, unpack_scale_pairs_np
+    from kquant.quant.qtensor import QTensor
+    from kquant.quant.repack import pack_scale_pairs, unpack_scale_pairs_np
 
     rng = np.random.default_rng(3)
     s = (rng.normal(size=(16, 64)).astype(np.float32) * 0.01) ** 2 + 1e-4
@@ -119,12 +119,12 @@ def test_pack_scale_pairs_roundtrip():
 def test_sm_jnp_dequant_matches_numpy():
     import numpy as np
     import jax.numpy as jnp
-    from tpu_kquant.gguf.constants import GGMLType
-    from tpu_kquant.quant.jnp_codecs import dequant_kmajor
-    from tpu_kquant.quant.repack import (
+    from kquant.gguf.constants import GGMLType
+    from kquant.quant.jnp_codecs import dequant_kmajor
+    from kquant.quant.repack import (
         pack_scale_pairs, repack, unpack_scale_pairs_np,
     )
-    from tpu_kquant.quant.qtensor import QTensor
+    from kquant.quant.qtensor import QTensor
 
     N, K = 64, 512
     rng = np.random.default_rng(5)
@@ -148,8 +148,8 @@ def test_sm_model_load_generate(tmp_path):
     fewer bytes, generation matches f32 scales on smooth fixtures."""
     import numpy as np
     import jax.numpy as jnp
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.runtime import InferenceEngine, load_model
 
     path = tmp_path / "sm.gguf"
     # dim 256 so attention projections quantize as real Q4_K (which carries
@@ -175,7 +175,7 @@ def test_sm_model_load_generate(tmp_path):
 def test_widen_q6_bit_exact():
     """widen_q6: q6 -> int8-code 'q6w' must dequantize BIT-identically
     (s*q - 32s == s*(q-32) exactly in f32) and drop the mins array."""
-    from tpu_kquant.quant.repack import widen_q6
+    from kquant.quant.repack import widen_q6
 
     N, K = 8, 512
     x = RNG.standard_normal((N, K)).astype(np.float32)
@@ -194,9 +194,9 @@ def test_widen_q6_bit_exact():
 
 
 def test_widen_q6_pallas_parity():
-    """Pallas q6w kernel (interpret mode) vs XLA dequant matmul."""
-    from tpu_kquant.ops.pallas_qmm import qmm_pallas
-    from tpu_kquant.quant.repack import widen_q6
+    """Fused q6w kernel (interpret mode) vs XLA dequant matmul."""
+    from kquant.ops.qmm_triton import qmm_triton as qmm_pallas
+    from kquant.quant.repack import widen_q6
     import jax.numpy as jnp
 
     N, K, B = 384, 512, 3
@@ -214,8 +214,8 @@ def test_widen_q6_model_load(tmp_path):
     """load_model(widen_q6=True) must produce identical logits to the packed
     q6 load (bit-exact dequant)."""
     import jax.numpy as jnp
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.runtime import InferenceEngine, load_model
 
     path = tmp_path / "m.gguf"
     cfg = tiny_config(n_layers=2, dim=512, n_heads=4, n_kv_heads=2,

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_kquant.ops.sampling import apply_penalties, sample
+from kquant.ops.sampling import apply_penalties, sample
 
 
 def test_min_p_masks_below_relative_threshold():
@@ -42,10 +42,10 @@ def test_fused_sampled_loop_matches_host_stepped(tmp_path):
     used by generate) must produce EXACTLY the token stream of a host-stepped
     loop driving sample_step + decode_step with the same key sequence —
     sampler chain + penalties included."""
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.ops.sampling import (
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.ops.sampling import (
         SamplerConfig, init_penalty_state, sample_step)
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.runtime import InferenceEngine, load_model
 
     path = tmp_path / "f.gguf"
     cfg = tiny_config(n_layers=2, dim=64, n_heads=4, n_kv_heads=2, ffn_dim=128,
@@ -82,8 +82,8 @@ def test_fused_sampled_loop_matches_host_stepped(tmp_path):
 def test_generate_repeat_penalty_breaks_loops(tmp_path):
     """A random tiny model greedy-decodes into a short cycle; a strong repeat
     penalty must break the cycle."""
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.runtime import InferenceEngine, load_model
 
     path = tmp_path / "p.gguf"
     cfg = tiny_config(n_layers=2, dim=64, n_heads=4, n_kv_heads=2, ffn_dim=128,

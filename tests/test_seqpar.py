@@ -5,8 +5,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from tpu_kquant.ops.attention import attention_decode
-from tpu_kquant.parallel.seqpar import (
+from kquant.ops.attention import attention_decode
+from kquant.parallel.seqpar import (
     make_seq_mesh, ring_attention, seq_attention_decode, shard_cache_seq)
 
 RNG = np.random.default_rng(21)
@@ -61,7 +61,7 @@ def test_seq_decode_position_inside_first_shard():
 
 
 def test_shard_cache_seq_specs():
-    from tpu_kquant.runtime.kv_cache import KVCache
+    from kquant.runtime.kv_cache import KVCache
 
     mesh = make_seq_mesh(seq=4, model=2)
     cache = KVCache.create(2, 1, 4, 32, 16, quantized=True)

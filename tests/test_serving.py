@@ -4,9 +4,9 @@ with staggered admission and mixed-length requests sharing the batch."""
 import numpy as np
 import pytest
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
-from tpu_kquant.serving import ContinuousBatcher, Request
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
+from kquant.serving import ContinuousBatcher, Request
 
 
 @pytest.fixture(scope="module")
@@ -226,7 +226,7 @@ def test_serving_sharded_tp_int8kv_parity(tmp_path):
     DP+TP mesh with an int8-quantized KV cache — sharded-weight/-cache/
     -state serving must reproduce the unsharded engine's greedy streams
     bit-for-bit, through staggered admissions and retirements."""
-    from tpu_kquant.parallel import make_mesh, make_param_put
+    from kquant.parallel import make_mesh, make_param_put
 
     mesh = make_mesh(data=2, model=4)
     cfg = tiny_config(n_layers=2, dim=32 * 4, n_heads=2 * 4, n_kv_heads=4,

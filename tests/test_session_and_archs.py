@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
 
 
 def test_session_save_restore(tmp_path):
@@ -128,7 +128,7 @@ def test_sliding_window_attention(tmp_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from tpu_kquant.ops.attention import attention_decode
+    from kquant.ops.attention import attention_decode
 
     rng = np.random.default_rng(0)
     B, S, H, Hkv, D = 1, 64, 4, 2, 16
@@ -149,8 +149,8 @@ def test_sliding_window_attention(tmp_path):
 
 
 def test_sliding_window_from_metadata(tmp_path):
-    from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-    from tpu_kquant.runtime import load_model
+    from kquant.models.fixtures import tiny_config, write_fixture_gguf
+    from kquant.runtime import load_model
 
     path = tmp_path / "swa.gguf"
     cfg = tiny_config(n_layers=2, dim=64, n_heads=4, n_kv_heads=2, ffn_dim=128,
@@ -158,7 +158,7 @@ def test_sliding_window_from_metadata(tmp_path):
     write_fixture_gguf(path, cfg, seed=8, scale=0.08)
     cfg2, params, _ = load_model(str(path))
     assert cfg2.sliding_window == 16
-    from tpu_kquant.runtime import InferenceEngine
+    from kquant.runtime import InferenceEngine
 
     eng = InferenceEngine(cfg2, params, max_batch=1, max_seq=64, impl="xla")
     out = eng.generate([[3, 100, 7]], max_new_tokens=4)

@@ -7,9 +7,9 @@ import pytest
 import jax
 from jax.sharding import PartitionSpec as P
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.parallel import make_mesh, make_param_put, shard_cache
-from tpu_kquant.runtime import InferenceEngine, load_model
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.parallel import make_mesh, make_param_put, shard_cache
+from kquant.runtime import InferenceEngine, load_model
 
 
 @pytest.fixture(scope="module")

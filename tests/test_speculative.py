@@ -6,9 +6,9 @@ changes the acceptance rate (speed), never the output.
 import numpy as np
 import pytest
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
-from tpu_kquant.runtime import InferenceEngine, load_model
-from tpu_kquant.runtime.speculative import generate_speculative
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.runtime import InferenceEngine, load_model
+from kquant.runtime.speculative import generate_speculative
 
 
 def _engine(tmp, name, seed, **kw):
@@ -75,7 +75,7 @@ def test_device_speculator_ngram_matches_greedy(engines):
     """The fully device-resident loop (one dispatch per generation) with
     the prompt-lookup n-gram draft emits exactly the plain greedy stream —
     rejected lookups are replaced by the target's own argmax."""
-    from tpu_kquant.runtime.speculative import DeviceSpeculator
+    from kquant.runtime.speculative import DeviceSpeculator
 
     target, _ = engines
     prompts = [[3, 5, 7, 11], [9, 300]]
@@ -89,7 +89,7 @@ def test_device_speculator_ngram_matches_greedy(engines):
 def test_device_speculator_two_model_matches_greedy(engines):
     """Device-resident two-model speculation: a WRONG draft model must
     still emit the target's exact greedy stream (only speed may differ)."""
-    from tpu_kquant.runtime.speculative import DeviceSpeculator
+    from kquant.runtime.speculative import DeviceSpeculator
 
     target, bad_draft = engines
     prompts = [[3, 5, 7, 11]]
@@ -105,7 +105,7 @@ def test_device_speculator_repetitive_text_accepts(engines):
     continuation of a loop-closed model output repeats too. Uses the
     model's own generated loop: generate once, feed output back as the
     prompt — the continuation repeats the cycle the model fell into."""
-    from tpu_kquant.runtime.speculative import DeviceSpeculator
+    from kquant.runtime.speculative import DeviceSpeculator
 
     target, _ = engines
     seed_out = target.generate([[3, 100, 7]], max_new_tokens=24)[0]

@@ -1,8 +1,8 @@
 """Tokenizer tests: SPM merge order, byte fallback, BPE ranks, round-trips."""
 
-from tpu_kquant.tokenizer.bpe import BPETokenizer, bytes_to_unicode, pretokenize
-from tpu_kquant.tokenizer.spm import SPMTokenizer
-from tpu_kquant.tokenizer.tokenizer import from_gguf_metadata
+from kquant.tokenizer.bpe import BPETokenizer, bytes_to_unicode, pretokenize
+from kquant.tokenizer.spm import SPMTokenizer
+from kquant.tokenizer.tokenizer import from_gguf_metadata
 
 
 def _spm_vocab():

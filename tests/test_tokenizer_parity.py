@@ -23,8 +23,8 @@ regex = pytest.importorskip("regex")
 
 from tokenizers import Tokenizer, models, pre_tokenizers, trainers  # noqa: E402
 
-from tpu_kquant.tokenizer.bpe import PRE_PATTERNS, BPETokenizer  # noqa: E402
-from tpu_kquant.tokenizer.spm import SPM_SPACE, SPMTokenizer  # noqa: E402
+from kquant.tokenizer.bpe import PRE_PATTERNS, BPETokenizer  # noqa: E402
+from kquant.tokenizer.spm import SPM_SPACE, SPMTokenizer  # noqa: E402
 
 TRAIN_CORPUS = [
     "The quick brown fox jumps over the lazy dog.",
@@ -108,7 +108,7 @@ def test_bpe_decode_roundtrip(bpe_pair):
 def test_pretokenize_matches_hf_split():
     """Our regex splitter must byte-match the tokenizers library's Split
     pre-tokenizer with the same llama-3 pattern."""
-    from tpu_kquant.tokenizer.bpe import pretokenize
+    from kquant.tokenizer.bpe import pretokenize
 
     pat = tokenizers.Regex(PRE_PATTERNS["llama3"])
     pt = pre_tokenizers.Split(pat, behavior="isolated")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
+from kquant.models.fixtures import tiny_config, write_fixture_gguf
 
 
 @pytest.fixture(scope="module")
@@ -16,15 +16,15 @@ def model_path(tmp_path_factory):
 
 
 def test_generate_cli(model_path, capsys):
-    from tpu_kquant.tools.main import main
+    from kquant.tools.main import main
 
     out = main(["--model", model_path, "--prompt", "hello world", "-n", "8"])
     assert isinstance(out, str)
 
 
 def test_perplexity(model_path):
-    from tpu_kquant.runtime import InferenceEngine, load_model
-    from tpu_kquant.tools.perplexity import perplexity
+    from kquant.runtime import InferenceEngine, load_model
+    from kquant.tools.perplexity import perplexity
 
     cfg, params, reader = load_model(model_path)
     eng = InferenceEngine(cfg, params, max_batch=1, max_seq=64, impl="xla")
@@ -38,7 +38,7 @@ def test_perplexity(model_path):
 
 
 def test_bench_cli_table(model_path, capsys):
-    from tpu_kquant.tools.bench_cli import main
+    from kquant.tools.bench_cli import main
 
     main(["--model", model_path, "-p", "16", "-n", "4", "-r", "2"])
     out = capsys.readouterr().out

@@ -4,8 +4,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from tpu_kquant.ops.act_quant import dequantize_activations, quantize_activations
-from tpu_kquant.ops.rope import RopeParams, rope_cos_sin
+from kquant.ops.act_quant import dequantize_activations, quantize_activations
+from kquant.ops.rope import RopeParams, rope_cos_sin
 
 
 def test_act_quant_roundtrip():
@@ -29,8 +29,8 @@ def test_act_quant_gsums():
 
 
 def test_roofline_accounting():
-    from tpu_kquant.models.fixtures import random_qparams, tiny_config
-    from tpu_kquant.utils.roofline import model_bytes_per_token, roofline_report
+    from kquant.models.fixtures import random_qparams, tiny_config
+    from kquant.utils.roofline import model_bytes_per_token, roofline_report
 
     cfg = tiny_config(n_layers=2, dim=64, n_heads=4, n_kv_heads=2,
                       ffn_dim=128, vocab_size=512)
@@ -38,7 +38,8 @@ def test_roofline_accounting():
     mb = model_bytes_per_token(params)
     assert mb["weight_bytes"] > 0
     # q4 with f32 scales/mins = 0.75 B/elem; weights exclude tok_embd rows
-    rep = roofline_report(params, cfg, measured_tok_s=100.0, chip="v5e",
+    rep = roofline_report(params, cfg, measured_tok_s=100.0,
+                          device_kind="NVIDIA H100 80GB HBM3",
                           batch=1, seq_len=128)
     assert rep["roofline_tok_s"] > 0
     assert 0 < rep["fraction_of_roofline"] < 1e6
@@ -61,8 +62,8 @@ def test_rope_neox_canonicalization_identity():
     and QK^T is invariant when both q and k carry the permutation."""
     import numpy as np
 
-    from tpu_kquant.ops.rope import RopeParams, apply_rope, rope_cos_sin
-    from tpu_kquant.runtime.loader import _rope_neox_perm
+    from kquant.ops.rope import RopeParams, apply_rope, rope_cos_sin
+    from kquant.runtime.loader import _rope_neox_perm
 
     rng = np.random.default_rng(3)
     H, D = 3, 16

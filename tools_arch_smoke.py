@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""On-TPU arch-family smoke: greedy tokens must MATCH between impl='auto'
-(megakernel dispatch) and impl='xla' on real hardware, at dims large enough
-that the fused kernels actually dispatch (D % 512 == 0).
+"""Arch-family smoke on the GPU: greedy tokens must MATCH between
+impl='auto' (the backend's kernels) and impl='xla', at dims large enough
+that the fused dequant-matmul kernel takes every projection.
 
-Covers the per-arch kernel paths interpret-mode tests cannot: qwen2 attention
-biases in the attn_in epilogue, phi3 pre-fused QKV (rope table padding for
-the un-roped V section), gemma2 softcaps/post-norms (megakernels gated off —
-the gates themselves are what's exercised), llama NORM-rope canonicalization.
+Covers what interpret-mode tests cannot: each family's projections through
+the compiled kernel — qwen2 attention biases, phi3 pre-fused QKV, gemma2
+softcaps/post-norms, llama NORM-rope canonicalization, mamba.
 
   python tools_arch_smoke.py [--arch llama qwen2 phi3 gemma2]
 """
@@ -20,8 +19,7 @@ sys.path.insert(0, str(REPO))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".cache" / "jax_cc"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from kquant.utils.cache import enable_compile_cache
 
 
 def log(*a):
@@ -34,10 +32,11 @@ def main():
                     default=["llama", "qwen2", "phi3", "gemma2", "mamba"])
     ap.add_argument("--tokens", type=int, default=12)
     args = ap.parse_args()
+    enable_compile_cache()
 
-    from tpu_kquant.models.fixtures import (
+    from kquant.models.fixtures import (
         tiny_config, tiny_mamba_config, write_fixture_gguf)
-    from tpu_kquant.runtime import InferenceEngine, load_model
+    from kquant.runtime import InferenceEngine, load_model
 
     log(f"devices: {jax.devices()}")
     failures = []

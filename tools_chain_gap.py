@@ -4,14 +4,13 @@ the in-chain step time actually go?
 
 The per-op table (tools_trace_decode.py) sums op SPANS, which double-counts
 the enclosing while and the async copy-start..copy-done windows. This tool
-instead works on the timeline: take the while op's span, bucket every
-compute event inside it by family, compute the union-of-intervals occupancy
-per family, and report the IDLE gaps (time when no compute op is running)
-— the launch/fixed-overhead budget the kernel lab measures as ~1.7 us/kernel
-standalone but which may be larger in-chain (the "per-kernel wins shrink
-~3x in-chain" question, README roadmap).
+instead works on the timeline: take the window (the while op's span where
+the device records one, else first to last event), bucket every kernel in it
+by family, compute the union-of-intervals occupancy per family, and report
+the IDLE gaps (time when no kernel is running) — the launch and host
+overhead between kernels.
 
-  python tools_chain_gap.py artifacts/perf/trace_decode_r5.xplane.pb --steps 32
+  python tools_chain_gap.py .cache/trace_decode.xplane.pb --steps 32
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from tpu_kquant.utils.xplane import parse_xspace
+from kquant.utils.xplane import parse_xspace
 
 
 def family(name: str) -> str:
@@ -77,14 +76,14 @@ def main():
     planes = parse_xspace(args.xplane)
     events = []
     for pname, lines in planes:
-        if "TPU" not in pname:
+        if not pname.startswith("/device:GPU"):
             continue
         for lname, evs in lines:
-            if "XLA Ops" not in lname:
+            if not lname.startswith("Stream"):
                 continue
             events.extend(evs)
     if not events:
-        sys.exit("no 'XLA Ops' line on a TPU plane")
+        sys.exit("no stream line on a GPU device plane")
 
     # the enclosing while = the longest while-family event
     whiles = [(n, o, d) for n, o, d in events if n.startswith("%while")]

@@ -59,7 +59,7 @@ def build_hf_checkpoint(out_dir: Path, n_layers: int, seed: int = 0):
     from tokenizers import Tokenizer, models, pre_tokenizers, trainers
     from transformers import LlamaConfig, LlamaForCausalLM
 
-    from tpu_kquant.tokenizer.bpe import PRE_PATTERNS
+    from kquant.tokenizer.bpe import PRE_PATTERNS
 
     # --- tokenizer: byte-level BPE w/ the llama-3 pre-tokenizer ---
     tok = Tokenizer(models.BPE())
@@ -109,17 +109,16 @@ def main():
     ap.add_argument("--out", default=str(REPO / "E2E_ORACLE.md"))
     args = ap.parse_args()
 
-    import jax
+    from kquant.utils.cache import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".cache" / "jax_cc"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     import torch
     from transformers import PreTrainedTokenizerFast
 
-    from tpu_kquant.runtime import InferenceEngine, load_model
-    from tpu_kquant.tokenizer import from_gguf_metadata
-    from tpu_kquant.tools.convert_hf import convert
+    from kquant.runtime import InferenceEngine, load_model
+    from kquant.tokenizer import from_gguf_metadata
+    from kquant.tools.convert_hf import convert
 
     hf_dir = REPO / ".cache" / "e2e-hf-tinyllama"
     t0 = time.time()
@@ -146,7 +145,7 @@ def main():
     results: list[tuple[str, str, bool]] = []
 
     # --- 1. tokenizer parity --------------------------------------------------
-    from tpu_kquant.gguf import GGUFReader
+    from kquant.gguf import GGUFReader
 
     with GGUFReader(str(gguf_f16)) as r:
         ours_tok = from_gguf_metadata(r.metadata)
@@ -226,7 +225,7 @@ def main():
         f"{args.gen}; max gap {max(gaps):.4f}")
 
     # --- 5. perplexity vs torch oracle ---------------------------------------
-    from tpu_kquant.tools.perplexity import perplexity
+    from kquant.tools.perplexity import perplexity
 
     eval_text = "\n".join(CORPUS * 8)
     eval_ids = ours_tok.encode(eval_text, add_bos=True)
@@ -258,7 +257,7 @@ def main():
 
     # --- 6. Q4_K_M quantization quality at true scale ------------------------
     if not args.skip_q4:
-        from tpu_kquant.tools.quantize import requantize
+        from kquant.tools.quantize import requantize
 
         q4path = REPO / ".cache" / "e2e-tinyllama-q4km.gguf"
         if not q4path.exists():

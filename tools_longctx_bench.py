@@ -19,12 +19,10 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".cache" / "jax_cc"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp
 import numpy as np
+
+from kquant.utils.cache import enable_compile_cache
 
 
 def log(*a):
@@ -43,10 +41,11 @@ def main():
     ap.add_argument("--json-out", default="")
     args = ap.parse_args()
 
+    enable_compile_cache()
     from bench import get_fixture
-    from tpu_kquant.models.fixtures import llama3_8b_config, tinyllama_1b_config
-    from tpu_kquant.runtime import InferenceEngine, load_model
-    from tpu_kquant.utils.roofline import roofline_report
+    from kquant.models.fixtures import llama3_8b_config, tinyllama_1b_config
+    from kquant.runtime import InferenceEngine, load_model
+    from kquant.utils.roofline import roofline_report
 
     preset_cfg = {
         "tinyllama-1.1b": ("tinyllama-1.1b-q4_k_m", tinyllama_1b_config),
@@ -54,10 +53,9 @@ def main():
     }[args.preset]
     model_path = args.model or get_fixture(preset_cfg[0], preset_cfg[1]())
     cfg, params, _ = load_model(model_path, scale_dtype="bf16")
+    kind = jax.devices()[0].device_kind
     log(f"devices: {jax.devices()}  arch={cfg.arch} L={cfg.n_layers}")
-
-    def sync(x):
-        return float(jnp.sum(x.astype(jnp.float32)))
+    sync = jax.block_until_ready
 
     half = args.tg // 2
     rows = []
@@ -92,7 +90,7 @@ def main():
             sync(tok)
             t2 = time.time() - t0
             tps = (args.tg - half) / max(t2 - t1, 1e-9)
-            rep = roofline_report(params, cfg, tps, chip="v5e", batch=1,
+            rep = roofline_report(params, cfg, tps, device_kind=kind, batch=1,
                                   seq_len=S, kv_quantized=(kv == "int8"))
             log(f"S={S:6d} kv={kv}: {tps:7.1f} t/s  "
                 f"(roofline {rep['roofline_tok_s']:.0f}, "
